@@ -1,6 +1,6 @@
 """Configuration objects for embedding variables.
 
-TPU-native re-design of DeepRec's ``EmbeddingVariableOption`` family
+Re-design of DeepRec's ``EmbeddingVariableOption`` family
 (reference: ``tensorflow/python/ops/variables.py:179-294`` and
 ``tensorflow/core/framework/embedding/embedding_config.h:8-107``).
 
@@ -22,7 +22,7 @@ import jax.numpy as jnp
 class StorageType(enum.Enum):
     """Where a table's rows live.
 
-    TPU analog of ``core/framework/embedding/config.proto:5-31``.  The
+    Analog of ``core/framework/embedding/config.proto:5-31``.  The
     DRAM/PMEM/SSD tiers of the reference collapse to two tiers here:
     device HBM (hot) and host RAM (spill).
     """
@@ -141,9 +141,8 @@ class EmbeddingVariableOption:
     # Record frequency / version metadata even when no filter/evict
     # policy needs them (reference: record_freq / record_version,
     # default False there — the LightHeader mode, value_ptr.h:78).
-    # Here the flags elide the per-step metadata UPDATES (a scatter
-    # prices per index on TPU — tools/exp_primitives.py), not the
-    # arrays: a subsystem that needs the metadata overrides the flag —
+    # Here the flags elide the per-step metadata UPDATES (one scatter
+    # per step each), not the arrays: a subsystem that needs the metadata overrides the flag —
     # counter filters / dyn-dim / multi-tier LFU force freq tracking,
     # eviction / multi-tier LRU / adaptive force version tracking —
     # so False is only honored when nothing would break.  With
@@ -159,7 +158,7 @@ class EmbeddingVariableOption:
 class TableConfig:
     """Static configuration of one logical embedding table.
 
-    TPU analog of ``EmbeddingConfig``
+    Analog of ``EmbeddingConfig``
     (``core/framework/embedding/embedding_config.h:8-107``).  ``capacity``
     must be a power of two: the open-addressing hash table masks rather
     than mods, and row-sharding divides capacity evenly across shards.

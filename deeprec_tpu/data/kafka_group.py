@@ -7,7 +7,7 @@ offsets survive worker churn, so each record trains exactly once per
 group.
 
 The reference delegates this to Kafka's broker-side group protocol
-(JoinGroup/SyncGroup/Heartbeat/OffsetCommit).  The TPU rebuild keeps
+(JoinGroup/SyncGroup/Heartbeat/OffsetCommit).  This rebuild keeps
 the dependency-free wire client (``kafka_protocol.py``) for the DATA
 plane and plays the COORDINATION plane with its own tiny service — the
 same architectural move as ``WorkQueue`` (the reference's elastic

@@ -3,8 +3,8 @@
 The reference hides input latency by carving the IO subgraph out of the
 training graph and running it in background threads through
 TensorBuffer queues (``python/ops/prefetch.py:55``,
-``core/kernels/tensor_buffer_ops.cc``, ``docs/Smart-Stage.md``).  On
-TPU the equivalent split is host/device: batch assembly (parse, pad,
+``core/kernels/tensor_buffer_ops.cc``, ``docs/Smart-Stage.md``).  Here
+the equivalent split is host/device: batch assembly (parse, pad,
 id-split) runs in Python threads ahead of time, and completed batches
 are transferred so the device never waits on the host.
 

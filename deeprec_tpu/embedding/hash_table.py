@@ -1,6 +1,6 @@
-"""Functional open-addressing hash table for TPU.
+"""Functional open-addressing hash table on the device.
 
-This is the TPU-native replacement for DeepRec's ``LocklessHashMap``
+This is the device-resident replacement for DeepRec's ``LocklessHashMap``
 (``core/framework/embedding/lockless_hash_map.h:25``) and the id→row
 mapping half of ``EmbeddingVar::LookupOrCreate``
 (``core/framework/embedding/embedding_var.h:130``).  The reference
@@ -12,18 +12,15 @@ operation is a pure function on that state, so it composes with ``jit``,
 Design:
   * ``capacity`` is a power of two; probing is linear with wraparound,
     starting at a BUCKET_W-aligned slot so the fast scan fetches one
-    whole bucket row per id (one gather index — indexed ops price per
-    index on TPU, nearly independent of row width).
+    whole contiguous bucket row per id (one gather index per id).
   * Keys are (hi, lo) int32 pairs (see ``utils/keys.py``) stored
     INTERLEAVED in bucket-row layout: ``key_rows[r, 2*w : 2*w+2]``
-    holds slot ``r*W + w``.  With ``W = 64`` a row is exactly 128 int32
-    — one full (8, 128) TPU tile line, so the RESIDENT layout is the
-    COMPUTE layout: 8 bytes/slot with zero tile padding and no
-    relayout copies.  (Storing ``[capacity, 2]`` and reshaping per
-    probe pinned an XLA layout whose minor dim 2 padded to 128 — a
-    64x-expanded, 16 GB copy per step at 2^25 slots; the round-4 dim16
-    OOM.)  EMPTY marks a never-used slot, TOMBSTONE an evicted one
-    (probe chains skip it, inserts reuse it).
+    holds slot ``r*W + w``, so the resident layout is the layout the
+    probe scans: 8 bytes/slot and no relayout copy.  (Storing
+    ``[capacity, 2]`` and reshaping per probe let XLA pin a layout that
+    padded the minor dim of 2 — a many-fold expanded copy of the keys
+    every step.)  EMPTY marks a never-used slot, TOMBSTONE an evicted
+    one (probe chains skip it, inserts reuse it).
   * A straggler rescan gathers WIDE_ROWS consecutive bucket rows per
     pending id over a compacted buffer — no data-dependent shapes, so
     XLA tiles it well.
@@ -51,14 +48,12 @@ import numpy as np
 from deeprec_tpu.utils import keys as keylib
 
 # Bucket width: slots are grouped in rows of BUCKET_W; the fast probe
-# scan gathers ONE [2*BUCKET_W]-int32 bucket row per id (a single
-# gather index) instead of per-slot rows.  Indexed ops on this platform
-# price per INDEX nearly independent of row width (tools/
-# exp_primitives.py), so the bucket-row fetch sync-measures 2.6x faster
-# than the old per-slot W=4 gather while scanning more slots
-# (tools/exp_bucket_probe.py).  W=64 makes a bucket row 128 int32 =
-# one (8, 128) tile line: the stored layout needs no padding and no
-# relayout copy (see module docstring).
+# scan gathers ONE [2*BUCKET_W]-int32 bucket row (512 B) per id instead
+# of per-slot rows.  The width is a hypothesis, not a measurement on
+# the current device: one wide row per id trades bytes fetched (a GPU
+# gather pays for the 32 B sectors it touches) against the number of
+# ids that miss the fast window and need the straggler rescan.
+# ``tools/exp_bucket_probe.py`` sweeps W to settle it.
 BUCKET_W = 64
 
 # Straggler-rescan width in bucket rows.  Two rows (128 slots from the
@@ -197,10 +192,8 @@ def _scan_wide(key_rows, qhi, qlo, starts, max_probes: int):
 # ignored.
 FAST_PROBES = 8
 
-# Two-level probing (the TPU-critical optimization of this module):
-# the probe key gather is THE dominant cost of the embedding path —
-# XLA indexed ops price per gather INDEX on v5e (sync-measured,
-# tools/exp_primitives.py), so the fast pass fetches ONE bucket row
+# Two-level probing: the probe key gather is expected to be a large
+# share of the embedding path, so the fast pass fetches ONE bucket row
 # ([2*BUCKET_W] int32) per id. At realistic load factors nearly every
 # id resolves within its own bucket row, and stragglers fall back to a
 # WIDE_ROWS-row scan inside a ``lax.while_loop`` whose trip count is
@@ -226,13 +219,13 @@ FAST_PROBES = 8
 def _straggler_budget(n: int) -> int:
     """Fixed size of the compacted wide-scan buffer.
 
-    Small on purpose: the wide gather prices per element ([M, W, 2] at
-    ~3 ns/elem — tools/exp_primitives.py), and the drain loop ALWAYS
-    retires every pending id, so buffer size only trades iteration
-    count against per-iteration cost.  A typical steady-state batch has
-    0..a-few-k stragglers — n/64 drains that in 1-2 ~1 ms rounds, while
-    the old n/8 buffer paid ~8x that for the same handful.  Cold-start
-    batches (everything pending) just run more rounds, once."""
+    Small on purpose: the wide gather costs per element ([M, W, 2]),
+    and the drain loop ALWAYS retires every pending id, so buffer size
+    only trades iteration count against per-iteration cost.  A typical
+    steady-state batch has 0..a-few-k stragglers, which n/64 drains in
+    1-2 rounds; a buffer 8x larger pays 8x per round for the same
+    handful.  Cold-start batches (everything pending) just run more
+    rounds, once."""
     return int(min(n, max(1024, n // 64)))
 
 
@@ -350,9 +343,9 @@ def find_or_insert(
         The claim scatter + key write only execute when at least one id
         actually wants to insert (a 1-trip ``while_loop``): in steady
         state every id is already present and the round costs just the
-        probe scan — scatters price per *index* on this platform (see
-        ``tools/exp_primitives.py``), so an all-dropped claim pass would
-        still pay ~11 ms at headline batch sizes.
+        probe scan — a scatter pays per index even when every index is
+        dropped, so an all-dropped claim pass would still cost a
+        batch-sized scatter.
         """
         r, key_rows, slots, is_new, pending = state
         found, found_slot, has_reuse, reuse_slot, saw_empty = _scan_fast(

@@ -1,6 +1,6 @@
 """Embedding lookup: dedup, bag combining, gradient boundary.
 
-TPU rebuild of the lookup pipeline in
+Rebuild of the lookup pipeline in
 ``python/ops/embedding_ops.py`` (combiners sum/mean/sqrtn) and the hot
 pre-lookup dedup primitive ``UniqueAliOp``
 (``core/kernels/unique_ali_op.cc:47``).  The reference dedups ids on

@@ -7,7 +7,7 @@ small dense tables; a key's embedding combines one row from each table
 (add / mult / concat), shrinking memory from O(V) to O(sum Bi).
 
 As in the reference, the part tables are ordinary dense variables — here
-a flax module whose parameters train with the dense optimizer (no hash
+a module whose parameters train with the dense optimizer (no hash
 table, no dynamicity needed: QR indices are bounded by construction).
 """
 
@@ -15,10 +15,10 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from deeprec_tpu.layers import module as nn
 from deeprec_tpu.utils import keys as keylib
 
 

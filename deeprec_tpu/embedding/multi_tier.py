@@ -1,6 +1,6 @@
 """Multi-tier embedding storage: HBM hot shard + host-RAM spill tier.
 
-TPU-native rebuild of DeepRec's multi-level storage manager
+Rebuild of DeepRec's multi-level storage manager
 (``core/framework/embedding/multilevel_embedding.h:49-487``:
 ``StorageManager::GetOrCreate`` walks DRAM→PMEM/LevelDB/SSD tiers,
 ``BatchEviction`` (:421-463) moves cold rows down, ``cache.h`` LRU/LFU
@@ -8,7 +8,7 @@ ranks decide victims) and of its KV backends
 (``lockless_hash_map.h``, ``leveldb_kv.h``, ``ssd_hashkv.h``).
 
 The reference resolves tier misses *synchronously inside the lookup op*
-on host threads.  A TPU step cannot take a host round-trip per miss, so
+on host threads.  A device step cannot take a host round-trip per miss, so
 the tiers are re-designed around the input pipeline instead:
 
   * The **hot tier** is the fixed-capacity device ``EVState`` shard —
@@ -181,7 +181,7 @@ class HostKV:
     """Host-RAM spill store: id -> (value row, freq, version, slot rows).
 
     Plays the role of the reference's lower-tier KV backends
-    (``leveldb_kv.h``, ``ssd_hashkv.h``); host RAM is the TPU host's
+    (``leveldb_kv.h``, ``ssd_hashkv.h``); host RAM is the device host's
     equivalent of the PS machine's DRAM/PMEM.  Storage is columnar
     (one growing array per field) indexed by a vectorized
     open-addressing :class:`_NpIndex`, so batch get/put/delete are

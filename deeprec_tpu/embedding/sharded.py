@@ -1,6 +1,6 @@
 """Row-sharded embedding tables over a device mesh.
 
-TPU-native replacement for both of the reference's distribution schemes:
+Replacement for both of the reference's distribution schemes:
 
   * PS-sharded EmbeddingVariables — ``tf.fixed_size_partitioner`` mod
     routing in ``_embedding_lookup_and_transform``
@@ -12,7 +12,7 @@ TPU-native replacement for both of the reference's distribution schemes:
     all2all_input_dispatcher.cu``).
 
 Here every device in a 1-D mesh axis owns one hash-table shard; ids are
-bucketed by a shard hash, exchanged over ICI with
+bucketed by a shard hash, exchanged between devices with
 ``jax.lax.all_to_all``, looked up on the owner, and exchanged back.
 All functions are written to run INSIDE ``jax.shard_map`` over the
 named axis; they see per-device local arrays.
@@ -178,7 +178,7 @@ def _psum_gather(x, axis_name):
     device-varying, which would poison the replicated table's whole
     state-update chain; ``psum`` output is provably invariant, letting
     shard_map verify that replicas stay identical (out_spec P()).  XLA
-    lowers the sum-of-disjoint-slices to a plain all-reduce on ICI.
+    lowers the sum-of-disjoint-slices to a plain all-reduce.
     """
     S = jax.lax.axis_size(axis_name)
     i = jax.lax.axis_index(axis_name)

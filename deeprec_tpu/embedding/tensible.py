@@ -1,6 +1,6 @@
 """Tensible (growable) embedding tables + admit strategies.
 
-TPU-native rebuild of the reference's second-generation KV variable
+Rebuild of the reference's second-generation KV variable
 subsystem (``core/framework/hash_table/{hash_table,tensible_variable,
 bloom_filter_strategy}.*``, ops ``core/ops/hash_ops.cc:52-207``, Python
 ``python/ops/hash_table/``): a ``HashTable`` mapping id→slot plus a

@@ -1,6 +1,6 @@
 """Feature columns: declarative input -> model-feature mapping.
 
-TPU rebuild of the reference's feature-column layer as used by the
+Rebuild of the reference's feature-column layer as used by the
 modelzoo (``python/feature_column/feature_column_v2.py:2050``
 ``categorical_column_with_embedding``, ``embedding_column``,
 shared-embedding, numeric_column; ``modelzoo/WDL/train.py:328``
@@ -67,10 +67,10 @@ class CompactIds(NamedTuple):
     coalescing salts on device, where the extra arrays are free — the
     wire carries half the bytes of a :class:`SparseIds` pair.
 
-    On this class of host links the id upload is the dominant e2e
-    input-pipeline cost (BENCH_DETAIL.json e2e row), which is what the
-    reference's zero-copy seastar transport attacked for PS traffic
-    (``docs/GRPC++.md``); here the lever is simply fewer bytes.
+    The id upload is a large share of the host-to-device bytes of the
+    e2e input pipeline, which is what the reference's zero-copy seastar
+    transport attacked for PS traffic (``docs/GRPC++.md``); here the
+    lever is simply fewer bytes.
     """
 
     ids: jax.Array  # [B, L] int32, raw (pre-salt)
@@ -265,8 +265,8 @@ class EmbeddingGroup:
         # Logical table -> (physical table, id salt). Identity unless
         # coalescing merges compatible tables (``coalesced_utils.py``
         # role): one dedup/probe/apply pipeline per *physical* table per
-        # step instead of one per logical table — on TPU this collapses
-        # dozens of small sorts/scatters into a couple of large ones.
+        # step instead of one per logical table: dozens of small
+        # sorts/scatters collapse into a couple of large ones.
         self._phys_of: Dict[str, tuple[str, int]] = {}
         # Base physical table -> hot-block sibling table (memory-saving
         # dynamic-dim split, ``embedding/dyn_dim.py``).

@@ -1,18 +1,19 @@
 """Dense building blocks shared by the model zoo.
 
-TPU notes: towers are plain matmuls that XLA maps straight onto the MXU;
+Towers are plain matmuls that XLA hands to the matrix units;
 ``dtype=bfloat16`` gives the reference's BF16 mixed-precision mode
-(``docs/BFloat16.md`` / ``keep_weights``): parameters stay float32
-(``param_dtype``), activations compute in bf16, logits in float32.
+(``docs/BFloat16.md`` / ``keep_weights``): parameters stay float32,
+activations compute in bf16, logits in float32.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+
+from deeprec_tpu.layers import module as nn
 
 
 class MLP(nn.Module):
@@ -30,7 +31,7 @@ class MLP(nn.Module):
         x = x.astype(self.dtype)
         for i, u in enumerate(self.units):
             x = nn.Dense(u, use_bias=self.use_bias, dtype=self.dtype,
-                         param_dtype=jnp.float32, name=f"dense_{i}")(x)
+                         name=f"dense_{i}")(x)
             if i < len(self.units) - 1:
                 x = self.activation(x)
             elif self.final_activation is not None:
@@ -46,7 +47,7 @@ class LogitsHead(nn.Module):
 
     @nn.compact
     def __call__(self, x):
-        x = nn.Dense(1, dtype=jnp.float32, param_dtype=jnp.float32,
+        x = nn.Dense(1, dtype=jnp.float32,
                      name="logits")(x.astype(jnp.float32))
         return x[..., 0]
 
@@ -68,8 +69,8 @@ def dot_interaction(field_emb, self_interaction: bool = False):
     """DLRM pairwise dot interaction.
 
     field_emb: [B, F, D] -> [B, F*(F-1)/2] upper-triangular pairwise
-    dots (``modelzoo/DLRM/train.py`` interact_features). One [B,F,D] x
-    [B,D,F] batched matmul — MXU-friendly.
+    dots (``modelzoo/DLRM/train.py`` interact_features): one [B,F,D] x
+    [B,D,F] batched matmul.
     """
     B, F, D = field_emb.shape
     z = jnp.einsum("bfd,bgd->bfg", field_emb, field_emb)
@@ -144,8 +145,8 @@ class GRU(nn.Module):
 
 class AUGRU(nn.Module):
     """Attention-update GRU (DIEN interest evolution): the update gate
-    is scaled by a per-step attention score.  ``lax.scan`` keeps the
-    recurrence compiler-friendly on TPU (SURVEY §7 hard-parts note).
+    is scaled by a per-step attention score.  The recurrence is one
+    ``lax.scan`` (SURVEY §7 hard-parts note).
     """
 
     hidden: int
@@ -202,8 +203,7 @@ class TransformerBlock(nn.Module):
         D = x.shape[-1]
         attn_mask = mask[:, None, None, :]  # broadcast over heads+query
         h = nn.MultiHeadDotProductAttention(
-            num_heads=self.num_heads, dtype=self.dtype,
-            param_dtype=jnp.float32, name="mha")(
+            num_heads=self.num_heads, dtype=self.dtype, name="mha")(
                 x.astype(self.dtype), x.astype(self.dtype),
                 mask=attn_mask)
         x = nn.LayerNorm(dtype=jnp.float32, name="ln1")(x + h)

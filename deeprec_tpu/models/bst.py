@@ -7,9 +7,9 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from deeprec_tpu.layers import module as nn
 from deeprec_tpu.layers.core import MLP, LogitsHead, TransformerBlock
 from deeprec_tpu.models.din import behavior_columns  # same feature set
 

@@ -10,10 +10,10 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from deeprec_tpu.layers import module as nn
 from deeprec_tpu.layers.core import AUGRU, GRU, MLP, LogitsHead
 from deeprec_tpu.models.din import behavior_columns  # same feature set
 

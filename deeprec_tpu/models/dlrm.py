@@ -8,12 +8,12 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from deeprec_tpu import config as cfglib
 from deeprec_tpu.feature_column.feature_column import (EmbeddingColumn,
                                                        NumericColumn)
+from deeprec_tpu.layers import module as nn
 from deeprec_tpu.layers.core import MLP, LogitsHead, dot_interaction
 
 NUM_INT = 13

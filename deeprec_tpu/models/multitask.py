@@ -9,13 +9,13 @@ from __future__ import annotations
 
 from typing import Any, Dict, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from deeprec_tpu import config as cfglib
 from deeprec_tpu.feature_column.feature_column import (EmbeddingColumn,
                                                        NumericColumn)
+from deeprec_tpu.layers import module as nn
 from deeprec_tpu.layers.core import MLP, LogitsHead
 from deeprec_tpu.train.losses import bce_with_logits
 
@@ -84,7 +84,7 @@ class MMoE(nn.Module):
         for t in self.tasks:
             gate = jax.nn.softmax(
                 nn.Dense(self.num_experts, dtype=jnp.float32,
-                         param_dtype=jnp.float32, name=f"gate_{t}")(
+                         name=f"gate_{t}")(
                              x.astype(jnp.float32)), axis=1)
             mixed = jnp.einsum("be,beh->bh", gate.astype(experts.dtype),
                                experts)

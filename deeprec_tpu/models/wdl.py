@@ -10,12 +10,12 @@ from __future__ import annotations
 
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
 from deeprec_tpu import config as cfglib
 from deeprec_tpu.feature_column.feature_column import (EmbeddingColumn,
                                                        NumericColumn)
+from deeprec_tpu.layers import module as nn
 from deeprec_tpu.layers.core import MLP, LogitsHead
 
 NUM_INT = 13
@@ -42,8 +42,8 @@ def criteo_columns(
     ``wide_in_deep``: store each field's wide (linear) weight as
     channel 0 of its deep table (dim+1) instead of a separate dim-1
     table — the model slices it back out. Wide and deep lookups hit
-    the SAME ids, so this halves the step's indexed-memory traffic
-    (the TPU bottleneck; see ``embedding/hash_table.py``). Exact for
+    the SAME ids, so this halves the step's probes, gathers and
+    scatters (see ``embedding/hash_table.py``). Exact for
     single-valued fields like Criteo's (combiner is irrelevant at
     L=1); for multi-valued bags the wide channel combines with the
     deep combiner instead of the reference's ``sum``. The wide channel

@@ -1,13 +1,13 @@
 // Native host ops for the deeprec_tpu input pipeline.
 //
-// TPU-native rebuild of the reference's host-side C++ hot paths:
+// Rebuild of the reference's host-side C++ hot paths:
 //   * fused CSV feature parsing   (core/kernels/trans_csv_ali_ops.cc:282-959
 //                                  TransCsvID2Sparse/KV2Dense/ToDense)
 //   * id dedup                    (core/kernels/unique_ali_op.cc:47 UniqueAliOp)
 //   * string/categorical hashing  (the categorical_column hash step that
 //                                  feeds EmbeddingVariables)
 //
-// On a TPU host these run on CPU between steps, overlapped with device
+// These run on the host's CPU between steps, overlapped with device
 // compute by the prefetch stage; they must be allocation-light and
 // branch-predictable.  Plain C ABI, loaded via ctypes (no pybind11 in
 // this image).  All buffers are caller-allocated numpy arrays.

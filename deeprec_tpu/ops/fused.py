@@ -10,7 +10,7 @@ Rebuilds, as XLA-fusable jnp functions with hand-written VJPs:
   * parallel Unique (``core/kernels/unique_ali_op.cc``) — device-side
     static-size dedup (re-exported from ``embedding.lookup``).
 
-On TPU these compile to single fused HLO loops (the reference needed
+Under XLA these compile to fused loops (the reference needed
 hand-written AVX kernels to get the same effect on CPU); the value here
 is the *gradient* structure: each VJP is one fused kernel too, instead
 of the op-by-op chain autodiff would emit.

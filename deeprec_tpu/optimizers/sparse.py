@@ -1,6 +1,6 @@
 """Sparse per-row optimizer applies for EmbeddingVariables.
 
-TPU-native rebuild of the ``KvResourceSparseApply*`` kernel family
+Rebuild of the ``KvResourceSparseApply*`` kernel family
 (``core/ops/training_ali_ops.cc:94-498``, ``core/kernels/
 training_ali_ops.cc``): Adagrad, AdagradDecay, Adam, AdamAsync, FTRL,
 FtrlV2, GradientDescent.  Optimizer slot rows share the primary's slot

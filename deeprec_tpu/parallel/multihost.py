@@ -2,17 +2,19 @@
 
 The reference scales across machines with PS jobs and cluster specs
 (`tf.train.ClusterSpec`, K8s launchers under ``modelzoo/*/
-distribute_k8s/``). The TPU equivalent is much smaller: every host
+distribute_k8s/``). The equivalent here is much smaller: every host
 runs the SAME SPMD program; `jax.distributed.initialize` wires the
-hosts into one runtime, the mesh spans all chips in the slice (ICI
-within a host's chips, DCN across hosts is handled by the runtime),
-and each host feeds only its local shard of the global batch.
+hosts into one runtime, the mesh spans every device of every host
+(collectives within and across hosts are the runtime's), and each host
+feeds only its local shard of the global batch.
 
-Typical launch (same on every host; TPU pod env vars are auto-detected
-so the arguments are usually omitted):
+Typical launch (same on every host). On GPU hosts nothing in the
+environment tells JAX about the cluster: pass the coordinator address
+(``host:port`` of process 0), the process count and this process's id
+explicitly:
 
     from deeprec_tpu.parallel import multihost
-    multihost.initialize()                       # no-op single-host
+    multihost.initialize("10.0.0.1:1234", num_processes=2, process_id=0)
     mesh = multihost.global_data_mesh()
     group = EmbeddingGroup(cols, axis_name="data",
                            num_shards=mesh.devices.size)
@@ -45,7 +47,7 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def global_data_mesh(axis_name: str = "data") -> jax.sharding.Mesh:
-    """1-D mesh over every chip in the slice (all hosts)."""
+    """1-D mesh over every device of every host."""
     from deeprec_tpu.parallel.mesh import make_mesh
     return make_mesh((len(jax.devices()),), (axis_name,))
 

@@ -3,7 +3,7 @@
 The reference ships a Triton backend adapter
 (``triton/tensorflow_backend_tf.cc``) so Triton can serve its models.
 Triton's client-facing contract is the KServe "v2" Open Inference
-Protocol; the TPU-native equivalent is to speak that protocol directly
+Protocol; the equivalent here is to speak that protocol directly
 over the serving runtime, so any Triton/KServe HTTP client works
 against ``ServingModel`` unchanged:
 

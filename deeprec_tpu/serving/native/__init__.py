@@ -4,9 +4,16 @@ The shared library itself (``processor.cc``) is the deliverable — any
 RPC framework can ``dlopen`` it and call ``initialize`` / ``process`` /
 ``batch_process`` (the reference C ABI,
 ``serving/processor/serving/processor.h:4-12``).  This module compiles
-it on demand with the system ``g++`` (same pattern as
-``deeprec_tpu/native``) and exposes a thin Python driver used by tests
-and by Python hosts that want the ABI surface.
+it from ``processor.cc`` with the system ``g++`` when the library is
+missing or older than its source (same pattern as
+``deeprec_tpu/native``); no prebuilt binary is shipped, and a failed
+build raises.  It also exposes a thin Python driver used by tests and
+by Python hosts that want the ABI surface.
+
+Each ``initialize`` spawns a serving worker process that opens the
+accelerator. A JAX process reserves most of a card's memory when it
+first uses it, so the host process that loads this library must not
+itself hold the card: it stays off JAX, or runs JAX on the CPU.
 """
 
 from __future__ import annotations
@@ -18,58 +25,47 @@ import subprocess
 import sys
 import tempfile
 import threading
-from typing import Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "processor.cc")
 _lock = threading.Lock()
 _lib = None
-_lib_err: Optional[str] = None
 
 
 def so_path() -> str:
     return os.path.join(_HERE, "libdeeprec_processor.so")
 
 
-def build() -> Optional[str]:
-    """Compile the .so if stale; returns its path (None on failure).
-
-    A rebuild failure falls back to an existing prebuilt library: git
-    does not preserve mtimes, so a fresh clone can present the source
-    newer than the committed .so, and a deployment host without a C++
-    toolchain must still be able to use the shipped binary.
-    """
-    global _lib_err
+def build() -> str:
+    """Compile ``processor.cc`` if the library is missing or stale;
+    returns its path. Raises RuntimeError if the compiler fails."""
     out = so_path()
-    try:
-        if (not os.path.exists(out)
-                or os.path.getmtime(out) < os.path.getmtime(_SRC)):
-            with tempfile.TemporaryDirectory() as td:
-                tmp = os.path.join(td, "p.so")
-                subprocess.run(
-                    ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                     "-o", tmp, _SRC],
-                    check=True, capture_output=True, timeout=120)
-                os.replace(tmp, out)
+    if (os.path.exists(out)
+            and os.path.getmtime(out) >= os.path.getmtime(_SRC)):
         return out
-    except Exception as e:  # noqa: BLE001
-        _lib_err = f"{type(e).__name__}: {e}"
-        if os.path.exists(out):
-            _lib_err += " (using prebuilt library)"
-            return out
-        return None
+    with tempfile.TemporaryDirectory() as td:
+        tmp = os.path.join(td, "p.so")
+        try:
+            subprocess.run(
+                ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                 "-o", tmp, _SRC],
+                check=True, capture_output=True, text=True, timeout=120)
+        except (OSError, subprocess.SubprocessError) as e:
+            detail = getattr(e, "stderr", None) or str(e)
+            raise RuntimeError(
+                f"building libdeeprec_processor.so from processor.cc "
+                f"failed: {detail}") from e
+        os.replace(tmp, out)
+    return out
 
 
 def load():
-    """CDLL with argtypes bound; None if the toolchain is unavailable."""
+    """CDLL with argtypes bound (builds the library first if needed)."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        path = build()
-        if path is None:
-            return None
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(build())
         vp = ctypes.c_void_p
         ip = ctypes.POINTER(ctypes.c_int)
         lib.initialize.restype = vp
@@ -92,10 +88,6 @@ def load():
         return _lib
 
 
-def build_error() -> Optional[str]:
-    return _lib_err
-
-
 def _take_output(lib, out_p: ctypes.c_void_p, n: int) -> bytes:
     data = ctypes.string_at(out_p, n)
     libc = ctypes.CDLL(None)
@@ -108,9 +100,6 @@ class Processor:
 
     def __init__(self, model_entry: str, model_config: dict):
         self._lib = load()
-        if self._lib is None:
-            raise RuntimeError(f"libdeeprec_processor build failed: "
-                               f"{_lib_err}")
         cfg = dict(model_config)
         cfg.setdefault("python", sys.executable)
         state = ctypes.c_int(-1)

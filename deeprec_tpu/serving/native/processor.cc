@@ -1,11 +1,11 @@
 // libdeeprec_processor.so — the embeddable C ABI serving entry.
 //
-// TPU rebuild of the reference's serving deliverable
+// Rebuild of the reference's serving deliverable
 // (serving/processor/serving/processor.h:4-12: initialize / process /
 // batch_process exported from libserving_processor.so, dlopen-ed by
 // arbitrary RPC frameworks; model_serving.h:13 Model lifecycle).
 //
-// Design: the TPU serving runtime (model load, full/delta checkpoint
+// Design: the serving runtime (model load, full/delta checkpoint
 // updates, jitted scoring — serving/processor.py) must live in a
 // process that owns the JAX runtime, so this shim implements the ABI
 // by SPAWNING one worker process per initialize() call

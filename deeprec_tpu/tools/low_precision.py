@@ -5,8 +5,9 @@ low_precision_optimize.py`` + ``calibrate.py``: convert a trained model
 to BF16 / INT8 for serving, with calibration-based scale selection and
 an accuracy-check helper.
 
-TPU specifics drive the design:
-  * dense kernels -> bf16 (MXU-native; no calibration needed) or
+Design:
+  * dense kernels -> bf16 (native to the matrix units; no calibration
+    needed) or
     per-output-channel symmetric int8 with dequant folded into the
     matmul consumer;
   * embedding tables are the memory hog (SURVEY: 100B-feature models),

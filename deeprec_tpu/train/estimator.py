@@ -56,11 +56,11 @@ class LoggingHook(Hook):
             return
         dt = time.perf_counter() - self._t0
         steps = step - self._last
-        tput = (steps * self.batch / dt) if (dt > 0 and self.batch) else 0.0
+        rate = (steps * self.batch / dt) if (dt > 0 and self.batch) else 0.0
         loss = float(metrics.get("loss", np.nan))
         self.log(f"step {step} loss {loss:.5f} "
                  f"({steps / max(dt, 1e-9):.2f} steps/s"
-                 + (f", {tput:.1f} samples/s" if self.batch else "") + ")")
+                 + (f", {rate:.1f} samples/s" if self.batch else "") + ")")
         self._t0 = time.perf_counter()
         self._last = step
 

@@ -5,7 +5,7 @@ Replaces the reference's MonitoredTrainingSession + executor stack
 direct_session.cc``): there is no graph rewriting or executor policy to
 choose — the whole step (lookup, exchange, model, optimizers) is one
 XLA program, and the PS architecture is replaced by synchronous SPMD
-over a 1-D mesh (SURVEY §2.2 "TPU-native equivalents").
+over a 1-D mesh (SURVEY §2.2).
 
 Two modes share the same step code:
   * single-device ``jit`` (mesh=None)
@@ -21,13 +21,13 @@ from typing import Any, Callable, Dict, Optional
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from deeprec_tpu.utils import pytree
 from jax.sharding import PartitionSpec as P
 
 from deeprec_tpu.feature_column.feature_column import EmbeddingGroup
 
 
-@struct.dataclass
+@pytree.dataclass
 class TrainState:
     params: Any                 # dense model params (replicated)
     dense_opt: Any              # optax state (replicated)
@@ -210,10 +210,8 @@ def make_epoch_step(group, apply_fn, loss_fn, sparse_opt, dense_tx,
     ``stacked_batches`` has a leading scan axis K on every leaf
     (``stack_batches`` builds it); losses is [K] for ``n_epochs == 1``,
     [E, K] otherwise (an outer scan repeats the pool E times inside the
-    same program). This is the throughput-optimal loop shape on TPU:
-    the host enqueues one program per K (or E*K) steps instead of K
-    programs (and tunneled/remote runtimes degrade with deep per-step
-    dispatch queues).
+    same program): the host enqueues one program per K (or E*K) steps
+    instead of K programs.
     """
     raw = make_train_step(group, apply_fn, loss_fn, sparse_opt,
                           dense_tx, mesh=mesh, donate=False,

@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import linen as nn
 
 from deeprec_tpu.feature_column.feature_column import (EmbeddingColumn,
                                                        EmbeddingGroup,
                                                        NumericColumn,
                                                        SparseIds)
+from deeprec_tpu.layers import module as nn
 from deeprec_tpu.layers.core import MLP, LogitsHead
 from deeprec_tpu.optimizers import sparse as sopt
 from deeprec_tpu.train import loop as trainlib

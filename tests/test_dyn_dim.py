@@ -143,7 +143,7 @@ def test_group_level_split_end_to_end():
     from deeprec_tpu.optimizers import sparse as sopt
     from deeprec_tpu.train import loop as trainlib
     from deeprec_tpu.train.losses import bce_with_logits
-    import flax.linen as nn
+    from deeprec_tpu.layers import module as nn
 
     col = EmbeddingColumn(
         name="f", dim=DIM, capacity=CAP, init_scale=1.0,
@@ -209,7 +209,7 @@ def test_group_level_split_sharded(mesh8):
     """Dyn-dim split under shard_map: base and hot siblings row-sharded
     over the mesh, hot insertion still CBF-gated per owner shard."""
     import optax
-    import flax.linen as nn
+    from deeprec_tpu.layers import module as nn
 
     from deeprec_tpu.feature_column.feature_column import (
         EmbeddingColumn, EmbeddingGroup, SparseIds)

@@ -267,7 +267,7 @@ def test_dynamic_dim_masking_survives_checkpoint():
 
 
 def test_multi_hash_params_survive_checkpoint(tmp_path):
-    """Multi-hash part tables are dense flax params; they ride the
+    """Multi-hash part tables are dense module params; they ride the
     dense.npz of the checkpoint and restore bit-exactly."""
     from deeprec_tpu.embedding.multi_hash import MultiHashEmbedding
 

@@ -3,7 +3,7 @@ continue must be bit-identical to training straight through.
 
 The reference's behavior spec runs every optimizer against EVs with
 save/restore (``python/ops/embedding_variable_ops_test.py`` optimizer
-matrix); this is the same guarantee for the TPU state layout,
+matrix); this is the same guarantee for the device state layout,
 including optimizer slot rows and scalar leaves (beta powers).
 """
 

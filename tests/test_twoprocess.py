@@ -4,7 +4,7 @@ Spawns two `jax.distributed` CPU processes (4 virtual devices each,
 8-device global mesh), runs the shared sharded model via
 ``multihost.initialize`` + ``host_local_to_global``, and asserts the
 losses match the single-process 8-device run bit-for-step. This is the
-TPU analog of the reference's in-process multi-task server tests
+analog of the reference's in-process multi-task server tests
 (``distributed_runtime/rpc/grpc_testlib.h``,
 ``grpc_session_test.cc``) — multi-process collectives + per-host batch
 assembly without real multi-chip hardware.

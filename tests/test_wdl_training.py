@@ -53,7 +53,7 @@ def test_wdl_single_device_learns():
     # The tuned zoo recipe (sparse Adagrad 0.3 + Adam towers,
     # tools/zoo_auc.py CAMPAIGN): flat Adagrad 0.05 underfits the
     # round-2 interaction-structured generator in a 120-step smoke
-    # (AUC 0.594 — the same recipe effect AUC_WDL.json documents).
+    # (AUC 0.594).
     opt = sopt.SparseAdagrad(learning_rate=0.3)
     tx = optax.adam(2e-3)
     ts = trainlib.create_train_state(group, params, tx, opt)

@@ -34,13 +34,13 @@ def collect(touch_device: bool = True) -> dict:
         "platform": platform.platform(),
         "cpu_count": os.cpu_count(),
         "env": {k: v for k, v in os.environ.items()
-                if k.startswith(("JAX_", "XLA_", "TPU_", "LIBTPU",
+                if k.startswith(("JAX_", "XLA_", "CUDA_", "NVIDIA_",
                                  "ENABLE_", "START_", "STOP_"))},
         "repo": {"commit": _git("rev-parse", "--short", "HEAD"),
                  "branch": _git("rev-parse", "--abbrev-ref", "HEAD"),
                  "dirty": bool(_git("status", "--porcelain"))},
     }
-    for mod in ("jax", "jaxlib", "flax", "optax", "numpy"):
+    for mod in ("jax", "jaxlib", "optax", "numpy"):
         try:
             info[mod] = __import__(mod).__version__
         except Exception as e:  # pragma: no cover - missing dep

@@ -3,10 +3,10 @@
 The probe scan is the top indexed-op consumer of the EV step.  Today it
 gathers ``key_pair[C, 2]`` at ``pos [n, W]`` — n*W gather indices.  A
 bucketized view ``[C/W, 2W]`` fetches a whole W-slot bucket per index —
-n indices — at identical bytes moved.  The platform cost model
-(tools/exp_primitives.py: indexed ops price per *index*, nearly
-width-independent to ~128 lanes) predicts ~W-fold probe speedup; this
-measures it.
+n indices — at identical bytes moved.  If a gather costs mostly per
+index, the bucket view is up to W times faster; if it costs by the
+bytes and cache sectors it touches, wide buckets lose.  This sweeps W
+(``hash_table.BUCKET_W``) to find which holds on the current device.
 
 Usage: python tools/exp_bucket_probe.py [--cpu] [--n N] [--cap_log2 20]
 """
@@ -24,12 +24,11 @@ import jax
 
 if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 
 import jax.numpy as jnp
 import numpy as np
+
+from deeprec_tpu.utils import compile_cache
 
 
 def _arg(flag, default, cast=int):
@@ -39,19 +38,18 @@ def _arg(flag, default, cast=int):
 
 
 def timeit(fn, *args, n=10, warm=2):
-    def fence(o):
-        np.asarray(jax.device_get(jax.tree.leaves(o)[0].ravel()[0:1]))
     for _ in range(warm):
         out = fn(*args)
-    fence(out)
+    jax.block_until_ready(out)
     t0 = time.perf_counter()
     for _ in range(n):
         out = fn(*args)
-    fence(out)
+    jax.block_until_ready(out)
     return (time.perf_counter() - t0) / n
 
 
 def main():
+    compile_cache.enable()
     N = _arg("--n", 426_000)
     C = 1 << _arg("--cap_log2", 20)
     rng = np.random.default_rng(0)
@@ -91,7 +89,7 @@ def main():
         res[f"flat_W{W}_ms"] = 1e3 * timeit(
             jax.jit(lambda kp, b, W=W: probe_flat(kp, b, W)),
             key_pair, buckets)
-    for W in (8, 16, 32):
+    for W in (8, 16, 32, 64):
         res[f"bucket_W{W}_R1_ms"] = 1e3 * timeit(
             jax.jit(lambda kp, b, W=W: probe_bucket(kp, b, W)),
             key_pair, buckets)

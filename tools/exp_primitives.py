@@ -26,12 +26,11 @@ import jax
 
 if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 
 import jax.numpy as jnp
 import numpy as np
+
+from deeprec_tpu.utils import compile_cache
 
 
 def _arg(flag, default, cast=int):
@@ -41,19 +40,18 @@ def _arg(flag, default, cast=int):
 
 
 def timeit(fn, *args, n=10, warm=2):
-    def fence(o):
-        np.asarray(jax.device_get(jax.tree.leaves(o)[0].ravel()[0:1]))
     for _ in range(warm):
         out = fn(*args)
-    fence(out)
+    jax.block_until_ready(out)
     t0 = time.perf_counter()
     for _ in range(n):
         out = fn(*args)
-    fence(out)
+    jax.block_until_ready(out)
     return (time.perf_counter() - t0) / n
 
 
 def main():
+    compile_cache.enable()
     N = _arg("--n", 426_000)
     C = 1 << 20
     D = _arg("--dim", 128)
@@ -194,6 +192,7 @@ if __name__ == "__main__" and "--part2" not in sys.argv:
 def main2():
     """Round-3 follow-ups: occ-dedup machinery pieces + dense-tower
     plumbing (concat/split vs pure matmul chain)."""
+    compile_cache.enable()
     N = _arg("--n", 426_000)
     U = 131072
     B, H = 16384, (1024, 512, 256)
@@ -226,15 +225,14 @@ def main2():
         jax.jit(lambda s, i: s[i]), stacked, idx)
 
     # Dense tower: pure chain vs 26-way concat + grad-split plumbing.
-    import flax.linen as nn
+    from deeprec_tpu.layers import module as nn
 
     class Chain(nn.Module):
         @nn.compact
         def __call__(self, x):
             x = x.astype(jnp.bfloat16)
             for u in H:
-                x = nn.relu(nn.Dense(u, dtype=jnp.bfloat16,
-                                     param_dtype=jnp.float32)(x))
+                x = nn.relu(nn.Dense(u, dtype=jnp.bfloat16)(x))
             return nn.Dense(1, dtype=jnp.float32)(x)[:, 0]
 
     dims = [65] * 18 + [129] * 8

@@ -292,8 +292,7 @@ def _campaign(names, steps, argv_tail):
                          "synthetic streams (data/criteo.py, data/"
                          "behavior.py docstrings), reference-shaped "
                          "configs, fresh batches every epoch, held-out "
-                         "streaming AUC. CPU backend = identical XLA "
-                         "program as TPU (PARITY.md quirk note). "
+                         "streaming AUC, CPU backend. "
                          "Synthetic Bayes-optimal AUC is ~0.85 "
                          "(criteo-like) — absolute numbers are "
                          "dataset-specific; the bar is clear lift over "

@@ -39,11 +39,7 @@ def main():
         "steps into distinct trajectories, so these deltas measure "
         "trajectory divergence, not numeric error. Signs are mixed "
         "(bf16 BEATS fp32 on dssm +0.0197 / dlrm +0.0088) — i.e. the "
-        "spread is run-level noise with no systematic bf16 loss. The "
-        "dtype-isolated measurement (identical trained params, eval "
-        "under both dtypes; and seed-matched short trainings on real "
-        "TPU) is in TPU_AUC.json: delta 0.000, inside the reference's "
-        "±0.002 bar.")
+        "spread is run-level noise with no systematic bf16 loss.")
     with open(os.path.join(HERE, "ZOO_AUC.json"), "w") as f:
         json.dump(main_doc, f, indent=1)
     print(f"merged {n} fp32 twins; max |delta| = "
